@@ -30,17 +30,16 @@ class GridConfig:
     unknown: int = -1
     free: int = 0
     occupied: int = 100
-    # Log-odds internal view (TPU-native path; the reference is tri-state only).
+    # Log-odds internal view (throughput path; the reference is tri-state only).
     logodds_hit: float = 0.85
     logodds_miss: float = -0.4
     logodds_clamp: float = 10.0
     # Grid storage dtype: "float32" (default) or "bfloat16". bf16 halves
-    # the HBM footprint (a 16,384^2 float32 grid is 1 GB — the r2 scaling
-    # ceiling); evidence is still ACCUMULATED in f32 inside the kernels
-    # and rounded on store, so the tri-state view stays equivalent within
-    # one evidence quantum (|hit|=0.85 => bf16 ulp <= 0.0625 below 16).
-    # Supported by the fused engine tiers; the sharded decompositions and
-    # the room kernel keep f32.
+    # the device-memory footprint (a 16,384^2 float32 grid is 1 GB);
+    # evidence is still applied in f32 and rounded on store, so the
+    # tri-state view stays equivalent within one evidence quantum
+    # (|hit|=0.85 => bf16 ulp <= 0.0625 below 16). Supported by the fused
+    # engine tiers; the sharded decompositions keep f32.
     logodds_dtype: str = "float32"
 
     @property
@@ -169,7 +168,7 @@ class SlamConfig:
     scanmatch_points: int = 2048
     # In-engine continuous merge (engine.merge_every cadence): each agent's
     # current scan matched against a window of the global map
-    # (slam/livemerge.py — the TPU-native form of map_merger.py's
+    # (slam/livemerge.py — the batched form of map_merger.py's
     # continuously re-aligning ICP node).
     merge_window_cells: int = 64        # local splat image side
     merge_search_cells: int = 8         # +/- translation search (cells)
@@ -190,7 +189,7 @@ class SlamConfig:
     # agents (round-robin over the fleet) — the reference merger aligns
     # ONE incoming submap at a time (map_merger.py:35-62), not the whole
     # fleet at once, and the full-fleet batched match dominated the step
-    # at swarm scale (76 ms/event at 1024 agents, r2). <= 0 or >= n, or
+    # at swarm scale. <= 0 or >= n, or
     # a size that doesn't divide the fleet/shard evenly, merges everyone.
     merge_chunk: int = 128
     merge_fitness_min: float = 0.6      # map_merger.py:52-56 rejection gate
@@ -255,7 +254,7 @@ class SlamConfig:
     # (measured: a 0.34 m slip stalls at ~0.26 m instead of recovering).
     merge_max_step_m: float = 0.15
     merge_max_step_rad: float = 0.05
-    # Escalating re-acquisition (VERDICT r3 item 2): after this many
+    # Escalating re-acquisition: after this many
     # CONSECUTIVE failed/railing merge events for an agent (failed = in
     # the matched chunk but fitness-rejected; railing = matched but the
     # persistent increment hit merge_max_step_*), the agent's next merge
@@ -291,7 +290,7 @@ class SlamConfig:
     # floor: 9 placements x 33 rotations in a symmetric room is a lot
     # of chances for a plausible false re-acquisition
     merge_recover_fit_min: float = 0.7
-    # Online per-agent yaw-RATE bias estimator (VERDICT r4 item 1): the
+    # Online per-agent yaw-RATE bias estimator: the
     # dominant swarm-scale drift mode is a per-meter yaw bias
     # (generate_fake_dual_session.py:414,444 — +/-0.008 rad/m), a frame
     # ROTATION that grows with distance; the level-only persistent
@@ -328,10 +327,9 @@ class SlamConfig:
     # (level observation integrated as a rate rails the estimate).
     merge_bias_level_damp: float = 0.5
     merge_bias_level_cap: float = 0.10  # rad per-event level-step clamp
-    # Online per-agent FRAME tracker (VERDICT r4 item 1, the mechanism
-    # that works where the yaw-rate estimator above measurably did not —
-    # see NOTES_r4.md forensics): the server estimates each agent's
-    # reported-frame rotation theta and velocity scale from the
+    # Online per-agent FRAME tracker (the mechanism that works where the
+    # yaw-rate estimator above measurably did not): the server estimates
+    # each agent's reported-frame rotation theta and velocity scale from the
     # POSITION-fix innovations, which carry a ~merge-interval lever arm
     # (|path| ~1.6 m vs ~0.1 m fix noise), instead of the rotation
     # matcher's dilation-blind ddtheta. Model: D_rep = s_rep R(e) D_true
@@ -504,7 +502,7 @@ class SlamConfig:
     # closure_scanmatch (unverified cross edges would be ~radius-grade
     # noise). Batched path only.
     closure_cross_radius_m: float = 0.0
-    # PROXIMITY-PAIR rendezvous (r5, VERDICT r4 item 2). The landmark-
+    # PROXIMITY-PAIR rendezvous. The landmark-
     # coincidence rendezvous above yields ~14 verified edges per 64
     # agents x 2000 steps — both agents must detect landmarks near the
     # same spot AND clear the global min_poses_between cooldown, so the
@@ -536,8 +534,8 @@ class CoordConfig:
     max_frontiers: int = 64             # fixed-capacity centroid list
     # At/above this agent count (with room_boxes available) the engines
     # use coord.assign.greedy_assign_rooms — R rounds of vectorized
-    # per-room greedy instead of the N-iteration sequential scan (launch
-    # latency ~5 ms/event at 1024 agents). Below it the exact
+    # per-room greedy instead of the N-iteration sequential scan (N
+    # dependent launches per event). Below it the exact
     # reference-order scan runs (small-scale bench numbers stay pinned).
     assign_rooms_min_agents: int = 128
 
@@ -585,40 +583,39 @@ class EngineConfig:
     # (bit-comparable cells to the reference); "beam" = polar inverse
     # sensor model (ops/beam_raster.py — scatter-free, the fast path).
     raster_mode: str = "line"
-    use_pallas: bool = False            # beam raster via the Pallas kernel
+    # Beam mode's raster tier: True = the order-free fast path
+    # (ops/fast_raster.py — line-equivalent crossing counts, clamped once
+    # per fan); False = the per-beam exact reference
+    # (ops/beam_raster.beam_raster_reference, one agent after another).
+    # The sharded engine always runs the fast path.
+    fast_raster: bool = False
     compute_frontiers: bool = True      # frontier detection at the 3 s cadence
     # Servo-scan variant (esp32_firmware/src/main.cpp): if > 0, each agent
     # additionally sweeps this many beams (-90..+90 deg) per step and the
     # sweep rasters into the grid — the 181-ray LaserScan path.
     scan_rays: int = 0
-    # Room-block raster (geom.world.make_tiled_rooms layouts only): > 0 =
-    # rooms per tile row; the beam fast path then uses the BlockSpec-
-    # pipelined per-tile kernel instead of per-agent windows.
-    room_tile_per_row: int = 0
-    # Beam fast path tuning: range-table group count (gather loop length)
-    # and whether endpoint hits are applied (exact sparse scatter).
-    # 0 (default) = PER-BEAM EXACT carve — the kernel's packed unrolled
-    # sweep matches the exact inverse sensor model cell-for-cell
-    # (5.1e8 cells/s on-chip at 1024 agents / 181 rays). > 0 = grouped
-    # turbo tier: ~3.3x faster (1.7e9 at groups=8) but the group-min
-    # carve under-fills sector interiors (free-space IoU vs exact
-    # plateaus ~0.83 even with the weak tail — measured, r2).
+    # Fast path tuning: range-table group count and whether endpoint hits
+    # are applied (exact sparse scatter).
+    # 0 (default) = PER-BEAM EXACT carve — each cell takes its own beam's
+    # range, matching the exact inverse sensor model cell for cell.
+    # > 0 = grouped tier: the group-min carve under-fills sector
+    # interiors (free-space IoU vs exact plateaus ~0.83 even with the
+    # weak tail — tests/test_fast_raster_quality.py).
     beam_groups: int = 0
     endpoint_hits: bool = True
     # Weak-evidence tail: carve miss*this from the group-min to the group-
     # MEAN range (fills the annulus the group-min carve leaves unknown;
     # free-space IoU vs the exact per-beam model 0.75 -> ~0.9+). 0 = off.
+    # Must be a multiple of 1/4 (the grouped tier's fixed point).
     beam_tail_weight: float = 0.25
-    # In-kernel endpoint painting (hits on the group-min ring, trusted-
-    # fraction weighted): cheaper than the exact scatter, placement
-    # blurred to the sector's nearest wall. Overrides endpoint_hits.
+    # Endpoint-ring painting inside the fast path (hits on the ring
+    # |r - r_b| <= 0.71, trusted-fraction weighted): cheaper than the
+    # exact scatter; on the grouped tier placement blurs to the sector's
+    # nearest wall. Overrides endpoint_hits.
     kernel_endpoints: bool = False
-    # Per-beam kernel range table as 8-bit quads (4 beams/int32 word):
-    # halves the gather sweep cost that dominates the VPU-bound kernel
-    # (r4 roofline) at <= 1/8-cell (6 mm) range quantization vs the
-    # 16-bit default's 1/512 cell. Single-chip fused-engine knob; the
-    # sharded decompositions keep the 16-bit packing (their XLA-tier
-    # bit-equality contracts quantize at 1/256 cell).
+    # Fast-path range quantization: 1/4 cell (<= 1/8-cell = 6 mm rounding,
+    # ranges clipped at 31.75 cells) instead of the 1/256-cell default.
+    # Fused-engine knob; the sharded decompositions keep 1/256 cell.
     beam_pack8: bool = False
     # In-engine merge cadence: every `merge_every` steps each agent's scan
     # is matched against the global map and the correction folded into its

@@ -69,9 +69,8 @@ def greedy_assign_rooms(agent_xy, online, centroids, n_centroids,
 
     `greedy_assign` scans agents SEQUENTIALLY (reference order,
     dual_bot_mapper.py:966-994) — at 1024 agents that is 1024 dependent
-    loop iterations of tiny vector work, pure launch latency on TPU
-    (~5 ms per frontier event, half the full-coordination throughput
-    haircut measured in r2). With per-room candidate restriction the
+    loop iterations of tiny vector work, pure launch latency on an
+    accelerator. With per-room candidate restriction the
     greedy order DECOMPOSES: agents in different rooms share no
     candidates, so only each agent's rank WITHIN its room orders the
     picks. This variant runs R = max(agents per room) vectorized rounds

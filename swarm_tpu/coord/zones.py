@@ -72,8 +72,8 @@ def zone_observe_rows(z: ZoneState, xs, ys, valid) -> ZoneState:
 
     xs, ys, valid: [N, K]. The scatter-min/max of `zone_observe_batch`
     becomes a plain axis reduction — the layout the fused engine produces
-    (one path point + the 4-way hits per agent per step), and ~100x cheaper
-    on TPU than the segment form."""
+    (one path point + the 4-way hits per agent per step), and far cheaper
+    than the segment form."""
     inf = jnp.inf
     mnx = jnp.min(jnp.where(valid, xs, inf), axis=1)
     mny = jnp.min(jnp.where(valid, ys, inf), axis=1)

@@ -3,7 +3,7 @@
 The reference casts one ray against one segment at a time in Python
 (simulation_tools/generate_fake_dual_session.py:67-90). Here a single fused
 computation intersects *every* ray of *every* agent against *every* wall
-segment at once — the [R, S] intersection tensor is pure VPU work that XLA
+segment at once — the [R, S] intersection tensor is pure elementwise work that XLA
 fuses into the surrounding sensing step. Semantics match the reference
 exactly: parallel rays rejected at |denom| < 1e-10, hits accepted for
 t > 1e-3 and u in [0, 1], missing rays reported as 99.0 m
@@ -66,9 +66,9 @@ TILE_COLS = 256
 def make_tiled_rooms(n_rooms: int, per_row: int, res: float = 0.05,
                      room_w: float = 6.0, room_h: float = 4.0):
     """Rooms laid out so each room sits inside ONE [TILE_ROWS, TILE_COLS]
-    grid tile (origin at world (0,0)) — the layout for the room-block
-    Pallas raster, where tile k pipelines through VMEM as a BlockSpec
-    block. Returns (walls [n_rooms*4, 4], room_origin_xy [n_rooms, 2])."""
+    grid tile (origin at world (0,0)) — rooms never straddle a tile
+    border, so whole tile rows (or tiles) can be owned by one device of
+    the sharded engine. Returns (walls [n_rooms*4, 4], room_origin_xy [n_rooms, 2])."""
     pitch_x = TILE_COLS * res
     pitch_y = TILE_ROWS * res
     mx = (pitch_x - room_w) / 2.0

@@ -9,7 +9,7 @@ Two variants exist in the reference and they deliberately differ:
     all three > max sensor range, priority CORNER_L > CORNER_R > CORRIDOR >
     DEAD_END > OPEN.
 
-Both are pure element-wise selects — fully vmap/VPU friendly. The type codes
+Both are pure element-wise selects — fully vmap friendly. The type codes
 match the server's table (dual_bot_mapper.py:69-79)."""
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ AgentFirmware_Bot2 mirror (right-wall follower, return-home via
 GO_TO_TARGET(home), Bot2.ino:417-423, 546-578) as ONE branch-free function:
 per-agent parameters select the wall side / speeds / return style, and every
 state's outcome is computed element-wise then masked by the current state
-code — the idiomatic TPU replacement for the reference's forked .ino files
+code — the idiomatic batched replacement for the reference's forked .ino files
 and data-dependent `switch`.
 
 A "tick" corresponds to one `navigate()` call. The firmware's blocking

@@ -2,7 +2,7 @@
 
 Builds `liboracle.so` from src/oracle.cpp on first use (g++ -O2, no
 dependencies) and exposes numpy-friendly wrappers. The oracle is the
-scalar CPU reference the batched TPU kernels are bit-compared against
+scalar CPU reference the batched JAX kernels are bit-compared against
 (SURVEY.md "Native-component note").
 """
 

@@ -1,7 +1,7 @@
-// Native C++ oracle for the TPU swarm engine.
+// Native C++ oracle for the JAX swarm engine.
 //
 // Independent scalar implementations of the algorithmic cores, used by the
-// test suite for bit-level comparison against the batched JAX/Pallas
+// test suite for bit-level comparison against the batched JAX
 // kernels (SURVEY.md "Native-component note"):
 //
 //   * 6-state EKF predict/update   — semantics of AgentFirmware_Bot1/

@@ -16,6 +16,11 @@ from swarm_tpu.ops.beam_raster import (  # noqa: F401
     endpoint_rays,
     free_raster_reference,
 )
+from swarm_tpu.ops.fast_raster import (  # noqa: F401
+    apply_counts,
+    fan_counts,
+    free_raster_fast,
+)
 from swarm_tpu.ops.frontier import (  # noqa: F401
     frontier_clusters,
     frontier_mask,

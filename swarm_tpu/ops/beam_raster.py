@@ -1,10 +1,8 @@
 """Polar beam-model occupancy update — the scatter-free raster path.
 
 The line-raster path (`ops.raster.logodds_delta`) scatter-adds every
-ray-cell individually; XLA lowers that to a serialized HBM scatter
-(~80 M updates/s measured — the engine's bottleneck at swarm scale). This
-module exploits the sensor geometry instead: ALL of an agent's beams share
-one origin and are UNIFORM in angle (4-way ultrasonics at 90 deg spacing,
+ray-cell individually. This module exploits the sensor geometry instead:
+ALL of an agent's beams share one origin and are UNIFORM in angle (4-way ultrasonics at 90 deg spacing,
 AgentFirmware_Bot1.ino:26-34; the 181-beam servo sweep at 1 deg,
 esp32_firmware/src/main.cpp:33), so the update of each cell in the agent's
 reach is a pure function of the cell's polar coordinates and that beam's
@@ -17,16 +15,16 @@ measured range — the classic inverse sensor model:
     HIT   if on_beam and |r_c - R_b| <= 0.5 and beam trusted
 
 Per agent this is a dense [ROWS, COLS] vectorized computation over a local
-patch around the agent — VPU work with NO scatter; the patch then
-read-modify-writes the global grid. `beam_raster_reference` is the XLA
-implementation (used for testing and as the CPU path); the Pallas kernel
-in ops/beam_raster_pallas.py runs the same math with explicit VMEM
-patches + async DMA.
+patch around the agent; the patch then read-modify-writes the global grid.
+`beam_raster_reference` (nearest-beam evidence) and `free_raster_reference`
+(line-equivalent crossing counts, the semantics of the fast path) add the
+agents' patches one after another — the plain references. The order-free
+fast path is ops/fast_raster.py.
 
 Semantics vs the line raster: each cell in reach is updated ONCE per agent
 per step (by its nearest beam) instead of once per crossing ray — an
 equally valid evidence model (it is the standard lidar one), kept as a
-separate mode (`EngineConfig.use_pallas` / `raster_mode="beam"`).
+separate mode (`raster_mode="beam"`, `EngineConfig.fast_raster`).
 """
 
 from __future__ import annotations
@@ -46,26 +44,20 @@ REACH_CELLS = 26        # max beam reach: 1.2 m trust / 5 cm + ring margin
 
 # Beam ranges are quantized to 1/256 cell (0.2 mm at the 5 cm grid) and
 # clipped to < 128 cells (6.4 m — 5x the 1.2 m sensor trust range) before
-# ANY fast-tier carve: the Pallas kernel gathers ranges as 15-bit fixed
-# point packed two-per-int32 word (bit 15 carries the trusted flag), and
-# applying the identical quantization in the XLA tier keeps the two
-# implementations bit-equal (tests/test_beam_raster.py::
-# test_banded_window_kernel_bit_exact). Both the quantization step and the
-# 2^-8 scale are exact in float32, and round() is monotone, so group
-# minima/medians of quantized ranges == quantized group minima/medians.
+# ANY fast-tier carve, identically in the fast path and the reference
+# (tests/test_beam_raster.py::test_banded_window_kernel_bit_exact). Both
+# the quantization step and the 2^-8 scale are exact in float32, and
+# round() is monotone, so group minima/medians of quantized ranges ==
+# quantized group minima/medians.
 RANGE_QUANT = 256.0
 RANGE_MAX_CELLS = 127.0 + 255.0 / 256.0
 
-# 8-bit quad packing (EngineConfig.beam_pack8): 7-bit ranges in 1/4-cell
-# fixed point (<= 1/8-cell = 6 mm quantization error vs the 0.5-cell
-# carve margin) + trusted flag in bit 7, FOUR beams per int32 word — the
-# gather select tree covers 32 beams per 9-op sweep instead of 16,
-# halving the dominant per-cell cost of the per-beam kernel (the r4
-# roofline measured the kernel AT the VPU elementwise ceiling with the
-# gather at 64 % of per-cell ops). 1/4 cell is an exact multiple of the
+# Coarse quantization (EngineConfig.beam_pack8): ranges in 1/4-cell fixed
+# point (<= 1/8-cell = 6 mm quantization error vs the 0.5-cell carve
+# margin), clipped below 32 cells. 1/4 cell is an exact multiple of the
 # 1/256-cell shared quant, so pre-quantizing ranges with
-# quantize_ranges_cells8 and feeding the XLA tier reproduces the packed
-# kernel bit-exactly (tests/test_beam_raster.py::test_pack8_*).
+# quantize_ranges_cells8 reproduces the coarse tier bit-exactly
+# (tests/test_beam_raster.py::test_pack8_*).
 RANGE_QUANT8 = 4.0
 RANGE_MAX_CELLS8 = 31.0 + 3.0 / 4.0
 
@@ -115,8 +107,7 @@ def reach_cells(cfg) -> int:
 def patch_dims(size: int, reach: int = REACH_CELLS,
                row_align: int = 8) -> Tuple[int, int]:
     """Agent-window shape guaranteeing >= `reach` cells of margin on every
-    side with ALIGNED origins (rows `row_align`, cols 128 — Mosaic DMA
-    tiling; bf16 grids tile sublanes by 16, so row_align=16 there):
+    side with ALIGNED origins (rows `row_align`, cols 128):
     rows = roundup(2*reach + align, align), cols = roundup(2*reach + 128,
     128) — [64, 256] for the default 1.2 m sonar reach. Small grids
     (< 512) span the full width instead."""
@@ -155,40 +146,6 @@ def patch_origin(ax_cell, ay_cell, size: int,
         col0 = ((jnp.floor(ax_cell).astype(jnp.int32) - reach) // 128) * 128
         col0 = jnp.clip(col0, col_off, col_off + w - cols)
     return row0, col0
-
-
-def fan_bbox_cells(yaw, spec: BeamSpec, reach_r: float):
-    """Per-agent bounding box of every cell the fan can paint, relative
-    to the agent position, in cells (r5 window-overscan cut — the r4
-    roofline measured ~5x of the kernel's VPU work on masked cells: the
-    [rows, cols] window is the ALIGNED bounding box of a half-disc fan).
-
-    The paintable set is {0} ∪ {r·(cos t, sin t) : t ∈ [lo, hi],
-    r ≤ reach_r} where [lo, hi] is the fan's in_fan direction arc
-    (free/ring gating only shrinks it). The bbox of an arc at radius R
-    takes R at each cardinal direction the arc contains, else the arc
-    endpoints; union with the agent point. Returns (xmin, xmax, ymin,
-    ymax), each [N] float cells."""
-    yaw = jnp.asarray(yaw, jnp.float32)
-    if spec.wrap:
-        r = jnp.full_like(yaw, reach_r)
-        return -r, r, -r, r
-    lo = yaw + spec.theta0 - spec.dtheta / 2.0
-    arc = (spec.n_beams) * spec.dtheta          # hi - lo
-
-    def has(a):
-        return jnp.mod(a - lo, 2.0 * math.pi) <= arc
-
-    hi = lo + arc
-    cl, ch = jnp.cos(lo), jnp.cos(hi)
-    sl, sh = jnp.sin(lo), jnp.sin(hi)
-    xmax = jnp.where(has(0.0), 1.0, jnp.maximum(cl, ch))
-    xmin = jnp.where(has(math.pi), -1.0, jnp.minimum(cl, ch))
-    ymax = jnp.where(has(math.pi / 2), 1.0, jnp.maximum(sl, sh))
-    ymin = jnp.where(has(-math.pi / 2), -1.0, jnp.minimum(sl, sh))
-    z = jnp.zeros_like(yaw)
-    return (jnp.minimum(z, xmin * reach_r), jnp.maximum(z, xmax * reach_r),
-            jnp.minimum(z, ymin * reach_r), jnp.maximum(z, ymax * reach_r))
 
 
 def _patch_delta(ax, ay, yaw, ranges_cells, trusted, row0, col0,
@@ -273,16 +230,6 @@ def beam_raster_reference(logodds, agent_xy, yaw, dist_m, trusted,
     return out, writes
 
 
-def group_min_ranges(ranges_cells, n_groups: int):
-    """[N, B] per-beam ranges -> [N, G] group minima (padded with the last
-    beam's value so trailing groups stay conservative)."""
-    n, b = ranges_cells.shape
-    per = -(-b // n_groups)
-    pad = n_groups * per - b
-    r = jnp.pad(ranges_cells, ((0, 0), (0, pad)), mode="edge")
-    return r.reshape(n, n_groups, per).min(axis=-1)
-
-
 def group_range_stats(ranges_cells, n_groups: int):
     """[N, B] per-beam ranges -> (carve [N, G], tail [N, G]) group range
     statistics for the fast free-space pass:
@@ -355,14 +302,14 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
                           line_equivalent: bool = True,
                           reach: int = REACH_CELLS, band=None,
                           band_cols=None, tail_weight: float = 0.25,
-                          phase=None):
-    """XLA reference of the FAST free-space pass (what the Pallas kernel
+                          phase=None, trusted=None, pack8: bool = False):
+    """Plain reference of the FAST free-space pass (what the fast path
     computes): free cells from GROUP-MIN ranges (conservative — never
     carves past the nearest wall in the sector), evidence scaled by the
     analytic beam-crossing count when line_equivalent. Endpoint hits are
-    NOT painted here — the engine applies them exactly via the endpoint
-    scatter. Returns (new_logodds, writes) where writes counts the
-    line-equivalent ray-cell updates applied (tail cells at tail_weight).
+    painted only as the ring below (`trusted`); otherwise the engine
+    applies them exactly via the endpoint scatter. Returns (new_logodds,
+    writes) where writes counts the line-equivalent ray-cell updates applied (tail cells at tail_weight).
 
     tail_weight > 0 adds WEAK free evidence (miss * tail_weight) in the
     annulus between the group min and the group MEAN range: the group-min
@@ -377,7 +324,14 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
     beams (see `group_range_stats_rotated`): cycling it across steps makes
     the group carve converge to the exact per-beam carve with no extra
     per-step cost. With phase set the carve is the rotated group MIN and
-    the per-cell sector lookup goes through the cell's own BEAM index."""
+    the per-cell sector lookup goes through the cell's own BEAM index.
+
+    trusted [N, B] paints the endpoint ring: cells with |r - r_g| <= 0.71
+    get hit * cnt * tf, tf the trusted fraction of the group's beams (0/1
+    per beam). pack8 quantizes ranges to 1/4 cell instead of 1/256 cell.
+    Evidence is limited to r <= reach, so the result does not depend on
+    where the window sits. Agents add their windows one after another in
+    float32; the grid is clamped once at the end."""
     res = cfg.resolution
     # ax/ay stay GLOBAL in every decomposition. band=(row_offset_cells,
     # n_rows) / band_cols=(col_offset_cells, n_cols) say `logodds` is a
@@ -392,8 +346,16 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
     ay = (agent_xy[:, 1] - cfg.origin_y) / res
     row_off = 0 if band is None else band[0]
     col_off = 0 if band_cols is None else band_cols[0]
-    ranges_cells = quantize_ranges_cells(dist_m / res)
+    ranges_cells = (quantize_ranges_cells8 if pack8
+                    else quantize_ranges_cells)(dist_m / res)
     per = -(-spec.n_beams // n_groups)
+    if trusted is None:
+        tfrac = jnp.zeros((ranges_cells.shape[0], n_groups), jnp.float32)
+    else:
+        # zero-pad then mean: padded beams count as untrusted
+        tfrac = jnp.pad(trusted.astype(jnp.float32),
+                        ((0, 0), (0, n_groups * per - spec.n_beams))
+                        ).reshape(-1, n_groups, per).mean(axis=-1)
     if phase is not None and per > 1:
         gmins, gtails = group_range_stats_rotated(ranges_cells, n_groups,
                                                   phase)
@@ -401,6 +363,8 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
         phase = None
         gmins, gtails = group_range_stats(ranges_cells, n_groups)
     pr, pc = patch_dims(cfg.size, reach)
+    # a band or tile narrower than the window takes a window of its size
+    pr, pc = min(pr, logodds.shape[0]), min(pc, logodds.shape[1])
     row0, col0 = patch_origin(ax, ay, cfg.size, pr, pc, reach,
                               n_rows=None if band is None else band[1],
                               n_cols=None if band_cols is None
@@ -410,7 +374,7 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
     gspec = BeamSpec(n_beams=n_groups, theta0=spec.theta0,
                      dtheta=group_dtheta, wrap=spec.wrap)
 
-    def one(a, b, y, gm, gmean, act, r0, c0):
+    def one(a, b, y, gm, gmean, tf_a, act, r0, c0):
         rows = jax.lax.broadcasted_iota(jnp.int32, (pr, pc), 0)
         cols = jax.lax.broadcasted_iota(jnp.int32, (pr, pc), 1)
         cy = (r0 + rows).astype(jnp.float32) + 0.5
@@ -459,7 +423,7 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
                if line_equivalent else jnp.ones_like(r))
         # sparse fans (4-way): only cells within a beam's half-cell width
         on_any = covered | (jnp.abs(r * resid) <= 0.6)
-        base_ok = in_fan & on_any & (r > 1e-3)
+        base_ok = in_fan & on_any & (r > 1e-3) & (r <= reach)
         if band_cols is not None:
             # tile windows can extend past the GLOBAL grid at edge tiles
             # (the halo ring); ghost cells there are discarded by the
@@ -477,9 +441,15 @@ def free_raster_reference(logodds, agent_xy, yaw, dist_m, active,
             delta = delta + jnp.where(
                 tail, cfg.logodds_miss * tail_weight * cnt, 0.0) * act
             w = w + tail_weight * jnp.sum(jnp.where(tail, cnt, 0.0))
-        return delta, w
+        if trusted is not None:
+            ring = base_ok & (jnp.abs(r - rb) <= 0.71)
+            tf = tf_a[g]
+            delta = delta + jnp.where(
+                ring, cfg.logodds_hit * cnt * tf, 0.0) * act
+            w = w + jnp.sum(jnp.where(ring, cnt * tf, 0.0))
+        return delta, w * act
 
-    deltas, writes = jax.vmap(one)(ax, ay, yaw, gmins, gtails,
+    deltas, writes = jax.vmap(one)(ax, ay, yaw, gmins, gtails, tfrac,
                                    active.astype(jnp.float32), row0, col0)
 
     def add_one(gr, args):

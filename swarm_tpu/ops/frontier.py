@@ -2,7 +2,7 @@
 
 Reference: `OccupancyGrid.get_frontiers` scans all 40k cells in Python and
 `cluster_frontiers` BFS-flood-fills clusters (dual_bot_mapper.py:181-231).
-Here the frontier mask is four shifted compares (one fused VPU pass) and
+Here the frontier mask is four shifted compares (one fused elementwise pass) and
 clustering is iterative min-label propagation under `lax.while_loop` —
 converging to exactly the same 4-connected components. Cluster ordering
 matches the reference's discovery order (row-major first cell), because the
@@ -90,16 +90,14 @@ def frontier_targets_coarse(grid, cfg: GridConfig = GridConfig(),
     # block*(block-1)/2 <= 120
     assert block <= 16, "int8 pooling bound"
 
-    # Block pooling as int8 MXU matmuls (r4): the natural
-    # reshape(nb, b, nb, b).sum((1, 3)) lowers to a strided cross-lane
-    # reduce that costs 11 ms to MATERIALIZE at 4096 grids (it only
-    # looks cheap when XLA fuses it into a downstream scalar reduce).
-    # Pooling with block-indicator matrices rides the MXU instead:
+    # Block pooling as int8 matmuls with int32 accumulation: the natural
+    # reshape(nb, b, nb, b).sum((1, 3)) is a strided cross-lane reduce
+    # that is costly to materialize at 4096 grids. Pooling with
+    # block-indicator matrices is a matrix product instead:
     # R = mask @ [B | Bdx] pools columns (counts and within-block
-    # x-offset sums), then B^T @ R pools rows — 1.05 ms measured for
-    # the whole tri+mask+pool stage, BIT-EQUAL stats (small-integer
-    # arithmetic throughout). Global coordinate sums come back from the
-    # block base: sum_x = block*bx*count + sum(dx), likewise sum_y.
+    # x-offset sums), then B^T @ R pools rows — BIT-EQUAL stats on every
+    # backend (integer products need no precision setting). Global
+    # coordinate sums come back from the block base: sum_x = block*bx*count + sum(dx), likewise sum_y.
     s_c = nb * block
     mask8 = frontier_mask(grid, cfg)[:s_c, :s_c].astype(jnp.int8)
     ii = jnp.arange(s_c, dtype=jnp.int32)
@@ -136,14 +134,11 @@ def frontier_targets_coarse(grid, cfg: GridConfig = GridConfig(),
     # exact-vs-coarse divergence test on engine maps.
     #
     # NO top_k anywhere: lax.top_k over the [nb^2]=262k block keys is a
-    # full bitonic sort on TPU — measured 3.5 ms for k=64 and ~9 ms for
-    # the k_max*(2 sep+1)^2 candidate prefilter at 4096 grids, i.e. the
-    # whole former cost of the 3 s coordination tick (the r2
-    # sequential-greedy scan + gathers were another ~16 ms). Instead:
+    # full sort. Instead:
     # peaks via a separable shifted-slice window max (XLA fuses the
     # (4 sep+2) 1 MB slice maxes), then compaction of the <= k_max
-    # surviving peaks in ROW-MAJOR order with a cumsum + one-hot matmul
-    # that rides the MXU. Row-major capping matches the exact path:
+    # surviving peaks in ROW-MAJOR order with a cumsum + one-hot matmul.
+    # Row-major capping matches the exact path:
     # frontier_clusters also truncates to the k_max LOWEST root ids
     # (discovery order), so both tiers share cap semantics.
     flat = jnp.arange(nb * nb, dtype=jnp.int32).reshape(nb, nb)
@@ -171,7 +166,10 @@ def frontier_targets_coarse(grid, cfg: GridConfig = GridConfig(),
               jnp.arange(k_max, dtype=jnp.int32)[:, None])
     vals = jnp.stack([counts.reshape(-1), sum_x.reshape(-1),
                       sum_y.reshape(-1)], axis=-1)         # [nb^2, 3]
+    # HIGHEST: the one-hot side is exact in any precision, but the
+    # coordinate sums reach 2^18 and TF32 keeps only 11 bits
     sel = jnp.matmul(onehot.astype(jnp.float32), vals,
+                     precision=jax.lax.Precision.HIGHEST,
                      preferred_element_type=jnp.float32)   # [K, 3]
     n_found = jnp.minimum(jnp.sum(pki), k_max)
     oks = jnp.arange(k_max) < n_found

@@ -1,6 +1,6 @@
 """Occupancy-grid rasterisation kernels.
 
-Two modes, per the north star (BASELINE.json):
+Two modes, per the north star:
 
 * `parity_raster` — bit-comparable to the CPU reference. The reference
   applies rays strictly in packet order with last-write-wins cell semantics
@@ -13,7 +13,7 @@ Two modes, per the north star (BASELINE.json):
   (ties impossible across rays; within a ray the endpoint is written last,
   so OCCUPIED wins ties at equal sequence id).
 
-* `logodds_raster` — the TPU-native high-throughput path: order-independent
+* `logodds_raster` — the high-throughput path: order-independent
   scatter-add of log-odds evidence (+hit at endpoints, -miss along paths),
   clamped. The tri-state parity view is a threshold of this accumulator.
 
@@ -111,7 +111,7 @@ def logodds_delta(rays: RayBatch, cfg: GridConfig = GridConfig(),
                   band_cols=None):
     """Unclamped log-odds evidence of one ray batch, scatter-added into a
     fresh [size, size] grid. Additive and order-independent, so shards can
-    compute local deltas and `psum` them over the mesh — the TPU-native
+    compute local deltas and `psum` them over the mesh — the sharded
     replacement for funnelling all packets to one server socket
     (dual_bot_mapper.py:814-824). Returns (delta, writes).
 
@@ -147,7 +147,7 @@ def logodds_delta(rays: RayBatch, cfg: GridConfig = GridConfig(),
 
 def logodds_raster(logodds, rays: RayBatch, cfg: GridConfig = GridConfig(),
                    k_max: int = 32):
-    """Order-independent log-odds evidence accumulation (TPU-native path).
+    """Order-independent log-odds evidence accumulation (throughput path).
 
     logodds: [size, size] float32. Returns (new_logodds, writes)."""
     delta, writes = logodds_delta(rays, cfg, k_max, logodds.dtype)

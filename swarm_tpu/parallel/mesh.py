@@ -2,10 +2,10 @@
 
 The reference scales by adding robots to a WiFi network and funnelling
 everything into one server socket (MULTI_AGENT_SETUP_GUIDE.md:25-31). The
-TPU equivalent is a 1-D `jax.sharding.Mesh` over an `agents` axis: agent
-state shards across chips (pure data parallelism — robots are independent
+equivalent here is a 1-D `jax.sharding.Mesh` over an `agents` axis: agent
+state shards across devices (pure data parallelism — robots are independent
 except through the map), and the shared occupancy grid is merged with a
-`psum` of additive log-odds evidence over ICI.
+`psum` of additive log-odds evidence over the interconnect.
 """
 
 from __future__ import annotations

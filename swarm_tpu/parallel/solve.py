@@ -1,11 +1,11 @@
-"""Mesh-sharded pose-graph solving — BASELINE configs[4]: 1024-agent
-swarm with pose-graph optimisation across the TPU mesh.
+"""Mesh-sharded pose-graph solving: 1024-agent swarm with pose-graph
+optimisation across the device mesh.
 
 Per-agent trajectory graphs are independent solves (the 'EP-like fan-out',
 SURVEY §2), so the decomposition is: shard the [N]-agent batch of graphs
 over the `agents` mesh axis, run the batched dense Gauss-Newton
 (slam/posegraph.py) locally on each shard — ZERO communication during the
-solve — and only the final cost scalars cross the ICI for reporting.
+solve — and only the final cost scalars cross the interconnect for reporting.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def make_trajectory_sharded_gn(mesh, n_chain: int, iterations: int = 10,
     one per device; each device computes residuals/Jacobians for its
     chunk only and scatters them into its local copy of the
     block-tridiagonal normal equations (D, O, b), which a single `psum`
-    over ICI completes. Closure edges (few) are folded in replicated, and
+    completes. Closure edges (few) are folded in replicated, and
     the log-depth structured solve (slam/tridiag.py) runs replicated —
     the accumulation, not the solve, is what scales with trajectory
     length. Returns solve(graph) -> (graph, costs); the PoseGraph's

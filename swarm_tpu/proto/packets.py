@@ -7,7 +7,7 @@ dual_bot_mapper.py:40-54, udp_bridge.py:34-38, udp_receiver_standalone.py:15).
 Here each layout exists once, as a packed numpy structured dtype, giving
 both a scalar codec (drop-in for `struct.pack/unpack`) and a ZERO-COPY
 batch codec: a [B]-packet byte buffer views as a structured array whose
-columns feed the engine's batched ingest directly — the TPU-native
+columns feed the engine's batched ingest directly — the batched
 replacement for the reference's per-packet `struct.unpack` loop
 (dual_bot_mapper.py:827-838).
 

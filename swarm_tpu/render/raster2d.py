@@ -169,10 +169,25 @@ def render_points(points_xy, points_agent, cfg: GridConfig = GridConfig(),
 
 
 def save_png(img, path: str) -> str:
-    """Host-side PNG encode (the only non-array step)."""
-    from PIL import Image
+    """Host-side PNG encode (the only non-array step): an 8-bit RGB image
+    [H, W, 3] as one zlib-compressed IDAT chunk, no filtering."""
+    import struct
+    import zlib
 
-    Image.fromarray(np.asarray(img)).save(path)
+    a = np.ascontiguousarray(np.asarray(img, np.uint8))
+    h, w = a.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          a.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data +
+                struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
     return path
 
 

@@ -1,5 +1,5 @@
 """Synthetic session generator — the reference's offline data engine
-(simulation_tools/generate_fake_dual_session.py) rebuilt for the TPU
+(simulation_tools/generate_fake_dual_session.py) rebuilt for this
 framework.
 
 Semantics preserved (SURVEY §3.3): scripted waypoint trajectories with a
@@ -11,7 +11,7 @@ v2v = inter-bot true distance in cm (:466), 15-degree yaw quantisation
 (:468), 5 % duplicate packets (:471) and the Bot-2 +/-0.08 s timestamp
 jitter (:505), all under one seed.
 
-TPU-first split: trajectory scripting and the sequential drift/noise chain
+Host/device split: trajectory scripting and the sequential drift/noise chain
 are host-side numpy (inherently sequential, offline, ~600 steps); the heavy
 geometry — every step's 4-ray exact cast — is ONE batched JAX call over the
 whole [T, 4] trajectory (geom.world.cast_rays). The waypoint routes are

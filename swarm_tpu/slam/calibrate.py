@@ -14,7 +14,7 @@ fix noise, an SNR the per-event ONLINE theta residual (~0.01 rad signal
 under ~0.07 rad quantisation sawtooth) never approaches. This module
 fits (yaw-rate bias, scale) per agent by re-integrating the odometry
 chain under candidate corrections and scoring against the fixes, fully
-batched over agents and candidates (one [B, N, T] jit — MXU-friendly
+batched over agents and candidates (one [B, N, T] jit — batched
 cumsums, no per-agent Python).
 
 The calibrated chain then feeds the existing offline tiers
@@ -45,7 +45,7 @@ def _score_biases(xy, w_obs, z_xy, bias_lo, bias_hi, n_bias: int,
     inv_c2: 1/c^2 of the Geman-McClure saturation rho(e2) = e2/(1 +
       e2/c^2) — a fix more than ~c off the candidate chain contributes
       a bounded ~c^2 instead of dominating the quadratic score (the
-      measured 21-31% false-fix fraction, NOTES_r4). 0 = plain SSE.
+      measured 21-31% false-fix fraction). 0 = plain SSE.
     Returns (biases [B], score [B, N]).
     """
     biases = jnp.linspace(bias_lo, bias_hi, n_bias)
@@ -121,7 +121,7 @@ def calibrate_chains(ex, ey, eyaw, obs_mask, zx, zy,
       steps — e.g. the logged post-match srv_x/srv_y.
 
     robust_c (metres) + irls_rounds: robust estimation against false
-      fixes (the measured 21-31% false-verified merge rate, NOTES_r4).
+      fixes (the measured 21-31% false-verified merge rate).
       The bias grid search scores with a Geman-McClure saturation at
       scale c; after each of `irls_rounds` passes the fix weights are
       re-derived from the calibrated chain's residuals (Cauchy IRLS,

@@ -14,7 +14,7 @@ Reference semantics reproduced exactly:
     908-919);
   * the landmark is stored AFTER matching, so a node never matches itself.
 
-TPU-first: the unbounded Python lists become ring buffers of static
+Batched form: the unbounded Python lists become ring buffers of static
 capacity; "first match in insertion order" is an argmin over the masked
 slot index — one vectorised pass instead of a data-dependent loop. The
 whole `add_pose` is pure and scan-able over a packet stream.

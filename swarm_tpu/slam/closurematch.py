@@ -8,7 +8,7 @@ short horizons (tools/bench_accuracy.py weight sweep). This module
 upgrades the edge to a real SE(2) measurement: the landmark ring stores
 the detecting robot's servo sweep (slam/closure.py lm_scan/lm_yaw), and
 when a closure fires the CURRENT scan is correlatively matched against
-a window splatted from the STORED scan — same MXU formulation as the
+a window splatted from the STORED scan — same matmul formulation as the
 map merge (slam/scanmatch.py::match_scan_window), the "map" here being
 one remembered scan instead of the global grid.
 
@@ -38,7 +38,7 @@ def splat_points_window(px, py, valid, side: int):
     """Bilinear splat of points (cell coords in the window frame) into a
     [side, side] mass image — the separable one-hot MATMUL of
     match_scan_window's splat (one [S, P] @ [P, S] contraction instead
-    of 4 TPU scatter-adds per point; out-of-window taps drop because the
+    of 4 scatter-adds per point; out-of-window taps drop because the
     one-hot compare never fires).
 
     NOTE: this is the rotation-free sibling of the splats inside
@@ -56,7 +56,9 @@ def splat_points_window(px, py, valid, side: int):
           (ii == y0[:, None] + 1) * fy) * vf[:, None]
     xv = ((ii == x0[:, None]) * (1.0 - fx) +
           (ii == x0[:, None] + 1) * fx)
-    return yv.astype(dtype).T @ xv.astype(dtype)
+    # HIGHEST: bilinear weights are not exact in bf16/TF32
+    return jnp.dot(yv.astype(dtype).T, xv.astype(dtype),
+                   precision=jax.lax.Precision.HIGHEST)
 
 
 def match_scan_pair(cur_dist, cur_pose, stored_dist, stored_pose,

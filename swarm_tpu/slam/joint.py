@@ -12,7 +12,7 @@ closures are solved as ONE joint SE(2) pose graph, so a well-localised
 agent's trajectory pulls a badly-drifted partner's into the shared
 frame through their common landmarks.
 
-TPU-first structure — the joint problem is shaped to reuse the
+Batched structure — the joint problem is shaped to reuse the
 structured solver (slam/tridiag.py) unchanged:
 
   * agent-major layout: agent block s owns nodes [s*S, (s+1)*S) with one

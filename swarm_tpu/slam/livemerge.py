@@ -5,7 +5,7 @@ per-agent submap is re-aligned against the global map with ICP and folded
 in if fitness >= 0.6 (server_nodes/map_merger.py:35-62). The fused engine's
 equivalent: at a step cadence, each agent's CURRENT scan is correlatively
 matched (slam/scanmatch.match_scan_window — rotation x translation
-hypotheses scored as one MXU conv) against a window of the global map as of
+hypotheses scored as one batched matmul) against a window of the global map as of
 the previous step, and the resulting rigid correction is (a) accumulated
 into a per-agent drift correction applied to all subsequent ingest (like
 the loop-closure corrections, dual_bot_mapper.py:854-857) and (b) applied
@@ -237,8 +237,8 @@ def scan_merge_recover(match_map, rx, ry, ryaw, scan_dist, alive,
                        cfg: SwarmConfig, event, n_global: int,
                        fail_count, id0=None, band_row0=None,
                        band_col0=None, win_bounds=None):
-    """Chunked scan merge with escalating re-acquisition (VERDICT r3
-    item 2: recover-and-continue, the reference's failover philosophy —
+    """Chunked scan merge with escalating re-acquisition (recover-and-
+    continue, the reference's failover philosophy —
     dual_bot_mapper.py:804-812 — applied to the merge matcher).
 
     Agents whose consecutive-failure counter (`fail_count`, maintained

@@ -2,11 +2,11 @@
 
 The reference's "pose graph" never solves anything: closures apply a 50 %
 damped positional nudge accumulated per agent (dual_bot_mapper.py:308-326).
-This module is the north-star upgrade (BASELINE.json): a real SE(2) graph —
+This module is the north-star upgrade: a real SE(2) graph —
 odometry edges between consecutive poses, closure edges between revisits —
 solved by Gauss-Newton with analytic Jacobians.
 
-TPU-first structure: graphs are fixed-capacity [M] pose arrays with masked
+Batched structure: graphs are fixed-capacity [M] pose arrays with masked
 edges; the normal equations H dx = -b are built with scatter-adds into a
 dense [3M, 3M] H (graphs per agent are small: M <= a few hundred), and the
 solve is one batched Cholesky — `vmap` runs every agent's graph

@@ -1,13 +1,13 @@
-"""Correlative grid-to-grid scan matching — the MXU replacement for the
+"""Correlative grid-to-grid scan matching — the matmul replacement for the
 reference's Open3D point-to-point ICP (server_nodes/map_merger.py:45-62:
 threshold 1.0 m, 30 iterations, reject fitness < 0.6).
 
 ICP is a data-dependent loop over nearest-neighbour queries — hostile to
-XLA. The TPU-native formulation is exhaustive correlation: score every
+XLA. The batched formulation is exhaustive correlation: score every
 (rotation, translation) hypothesis in a window at once, where the score of
 all translations for one rotation is a single 2-D cross-correlation of the
 rotated local map against the global map — i.e. `lax.conv` with the local
-map as the kernel, which XLA tiles straight onto the MXU. A parabolic fit
+map as the kernel, which XLA maps onto matrix units. A parabolic fit
 around the peak gives sub-cell refinement. Fitness = matched fraction of
 occupied cells, with the reference's 0.6 rejection gate.
 
@@ -38,13 +38,12 @@ def _rotated_mass_stack(local_occ, thetas, k_points: int):
     """All rotation hypotheses of a sparse occupancy-mass image at once:
     extract the top-`k_points` cells, rotate their COORDINATES, and
     bilinear-splat into [A, S, S]. Occupancy grids are mostly zero, so
-    this replaces the dense bilinear gather (`_rotate_grid`, measured
-    ~48 ms for 17 rotations of a 256^2 map on the chip — gather-bound).
+    this replaces the dense bilinear gather (`_rotate_grid`, which is
+    gather-bound).
     The splat itself is a separable one-hot MATMUL (bilinear stamp =
     outer product of a y-stamp and an x-stamp, so the image is
-    Yv^T @ X — see match_scan_window's splat): XLA serializes TPU
-    scatters, and the scatter form of this splat still cost ~4.7 ms per
-    256^2 pair. Forward splat is the adjoint of backward sampling; mass
+    Yv^T @ X — see match_scan_window's splat) rather than a scatter.
+    Forward splat is the adjoint of backward sampling; mass
     is conserved exactly per rotation (out-of-window taps drop because
     the one-hot compare never fires)."""
     s = local_occ.shape[0]
@@ -68,14 +67,16 @@ def _rotated_mass_stack(local_occ, thetas, k_points: int):
               (ii == y0[:, None] + 1) * fy) * vals[:, None]
         xv = ((ii == x0[:, None]) * (1.0 - fx) +
               (ii == x0[:, None] + 1) * fx)
-        return yv.astype(dtype).T @ xv.astype(dtype)
+        # HIGHEST: bilinear weights are not exact in bf16/TF32
+        return jnp.dot(yv.astype(dtype).T, xv.astype(dtype),
+                       precision=jax.lax.Precision.HIGHEST)
 
     return jax.vmap(one)(thetas)
 
 
 def _rotate_grid(occ, theta, cfg: GridConfig):
     """Rotate an occupancy-mass image about the grid centre by theta,
-    bilinear. occ: [S, S] float. Pure gather — VPU work."""
+    bilinear. occ: [S, S] float. Pure gather."""
     s = occ.shape[0]
     c = (s - 1) / 2.0
     yy, xx = jnp.meshgrid(jnp.arange(s, dtype=occ.dtype),
@@ -245,8 +246,8 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
     """Correlative scan-to-map matching of ONE agent's current scan against
     a window of the global map — the continuously-running realignment the
     reference's merger performs on every incoming submap
-    (map_merger.py:35-62: ICP, reject fitness < 0.6), reformulated for the
-    MXU: every (rotation, translation) hypothesis scored at once, the
+    (map_merger.py:35-62: ICP, reject fitness < 0.6), reformulated as
+    matmuls: every (rotation, translation) hypothesis scored at once, the
     translations of one rotation being a single 2-D cross-correlation.
 
     off_x, off_y: [R] world-frame offsets of the scan hit points relative
@@ -281,9 +282,8 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
         # of point p is an outer product (wy0*e_y0 + wy1*e_y1) x
         # (wx0*e_x0 + wx1*e_x1), so the whole image is Yv^T @ X with
         # Yv[p, :] = valid_p * y-stamp and X[p, :] = x-stamp — one
-        # [S, P] @ [P, S] MXU contraction instead of 4 scatter-adds per
-        # point (XLA serializes TPU scatters; the scatter splat was the
-        # in-engine merge's cost at swarm scale, ~190 us/agent). Out-of-
+        # [S, P] @ [P, S] contraction instead of 4 scatter-adds per
+        # point. Out-of-
         # window taps drop automatically (the one-hot compare never
         # fires), matching the scatter's mode="drop" per-corner.
         ct, st = jnp.cos(t), jnp.sin(t)
@@ -298,7 +298,9 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
               (ii == y0[:, None] + 1) * fy) * vf[:, None]
         xv = ((ii == x0[:, None]) * (1.0 - fx) +
               (ii == x0[:, None] + 1) * fx)
-        return yv.astype(dtype).T @ xv.astype(dtype)
+        # HIGHEST: bilinear weights are not exact in bf16/TF32
+        return jnp.dot(yv.astype(dtype).T, xv.astype(dtype),
+                       precision=jax.lax.Precision.HIGHEST)
 
     rot = jax.vmap(splat)(thetas)                          # [A, s_in, s_in]
 
@@ -321,22 +323,21 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
 
     # Translation scoring as an im2col MATMUL instead of a conv: under
     # the per-agent vmap the conv becomes a 128-group grouped
-    # convolution with per-example 80x80 kernels, which XLA lowers
-    # abysmally on TPU (~22 ms for ~2 GMAC measured — the whole merge
-    # stage's cost). Stacking the (2w+1)^2 shifted views and contracting
+    # convolution with per-example 80x80 kernels, which lowers poorly.
+    # Stacking the (2w+1)^2 shifted views and contracting
     # [A_theta, s_in^2] @ [s_in^2, (2w+1)^2] is one well-shaped batched
     # matmul (K = s_in^2 = 6400).
     side_s = 2 * w + 1
     patches = jnp.stack(
         [dil[di:di + s_in, dj:dj + s_in].reshape(-1)
          for di in range(side_s) for dj in range(side_s)], axis=1)
+    # HIGHEST: both operands are fractional masses (bilinear splat, map
+    # mass), so bf16/TF32 inputs would round the scores whose argmax
+    # picks the correction; f32 keeps the GPU on the CPU's numbers
     scores = jnp.dot(rot.reshape(n_theta, -1), patches,
+                     precision=jax.lax.Precision.HIGHEST,
                      preferred_element_type=jnp.float32).reshape(
         n_theta, side_s, side_s)                           # [A, 2w+1, 2w+1]
-    # (f32 ACCUMULATION pinned — same numerics as the conv this
-    # replaced, whose preferred_element_type was f32 over bf16 inputs;
-    # a full Precision.HIGHEST pin costs 3 matmul passes and measured
-    # ~2x the whole matcher)
 
     # Zero-motion prior: straight walls constrain only their normal (the
     # aperture problem) — the score is flat along the wall and a bare
@@ -423,6 +424,7 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
     win_raw = jax.lax.dynamic_slice(window_mass.astype(dtype), (di, dj),
                                     (s_in, s_in))
     t_line = jnp.dot(rot.reshape(n_theta, -1), win_raw.reshape(-1),
+                     precision=jax.lax.Precision.HIGHEST,
                      preferred_element_type=jnp.float32)
     ai_r = jnp.argmax(t_line)
     off_r = refine_t(ai_r, t_line)
@@ -435,8 +437,8 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
     # centre-favouring slope this test must not see). Wall-hugging scans
     # (score flat along the wall — the aperture problem) and symmetric-
     # room aliases (a second in-window peak within the margin) fail it;
-    # those are the measured false-verified geometries (NOTES_r4: 21-31%
-    # of fitness-verified events).
+    # those are the measured false-verified geometries (21-31% of
+    # fitness-verified events).
     if distinct_margin > 0.0:
         jj_g = jnp.arange(side, dtype=jnp.int32)
         far = (jnp.abs(jj_g[:, None] - di) >= distinct_radius) | \

@@ -1,16 +1,16 @@
 """Structure-exploiting pose-graph Gauss-Newton (SURVEY §5 long-axis
-parallelism; VERDICT r1 item 6).
+parallelism).
 
 A trajectory pose graph's Hessian is a block-tridiagonal chain (odometry
 edges couple consecutive poses) plus a LOW-RANK update from loop closures
 (each closure edge (i, j) contributes J_eᵀ W_e J_e with J_e nonzero only at
 nodes i and j — rank ≤ 3). The dense solver (slam/posegraph.py) ignores
-this and pays O(M³) Cholesky (140 ms at 1024 nodes on chip); here:
+this and pays O(M³) Cholesky; here:
 
   * the chain part solves by **block cyclic reduction** — log₂(M) levels,
     each a fully-batched sweep of 3×3 inversions and [3, K] matmuls over
     the remaining blocks. This is the parallel-prefix ("sequence-parallel")
-    formulation: O(M log M) tiny ops but only log-depth, so the TPU's
+    formulation: O(M log M) tiny ops but only log-depth, so the device's
     vector units stay saturated instead of serializing a Thomas recursion;
   * closures fold in by the **Woodbury identity**:
     (T + U S Uᵀ)⁻¹ b = T⁻¹b − T⁻¹U (S⁻¹ + UᵀT⁻¹U)⁻¹ UᵀT⁻¹b,
@@ -145,7 +145,7 @@ def structured_gn(g: PoseGraph, n_chain: int, iterations: int = 10,
     Hessian contribution is a pure block-diagonal add, so they fold
     into the chain solve at zero extra structure (no Woodbury columns).
     This is how fitness-verified anchored-merge matches enter the
-    offline solve as external-frame observations (VERDICT r3 item 1)."""
+    offline solve as external-frame observations."""
     m = g.poses.shape[0]
     assert n_chain == m - 1, "chain edges must be the first m-1 edges"
     c = g.ei.shape[0] - n_chain

@@ -1,5 +1,5 @@
 """Pure-NumPy CPU oracle implementing the reference server's mapping
-semantics (server_nodes/dual_bot_mapper.py), used to verify the TPU engine
+semantics (server_nodes/dual_bot_mapper.py), used to verify the JAX engine
 bit-for-bit at the cell-state level. Deliberately written in the slow,
 sequential style of the reference so it serves as an independent check on
 the batched kernels — this module is TEST CODE, never a compute path.

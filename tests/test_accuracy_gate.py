@@ -1,7 +1,7 @@
-"""CI accuracy gate (VERDICT r2 item 3): the deployable correction
+"""CI accuracy gate: the deployable correction
 mechanism (anchored scan-merge, SlamConfig.merge_anchor) must cut
 late-trajectory ATE versus raw drifted odometry on a short closed-loop
-run — the recorded factor is printed so BASELINE.md numbers stay
+run — the recorded factor is printed so the number stays
 reproducible."""
 
 import dataclasses
@@ -37,7 +37,7 @@ def test_anchored_merge_cuts_late_ate():
 
     base, walls, params, rooms = _cfg_and_world(
         4, frontiers=False, parity=False, raster_mode="beam",
-        use_pallas=False, scan_rays=61, tiled=True)
+        fast_raster=False, scan_rays=61, tiled=True)
     raw_cfg = base.replace(
         slam=dataclasses.replace(base.slam, closure_radius_m=0.0),
         engine=dataclasses.replace(base.engine, merge_every=0))

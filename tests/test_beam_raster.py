@@ -1,5 +1,6 @@
-"""Polar beam-model raster: semantics, pallas-kernel equivalence, and
-agreement with the line raster on a real scenario."""
+"""Polar beam-model raster: semantics, fast-path equivalence with the
+reference on full-grid, band and tile windows, and agreement with the line
+raster on a real scenario."""
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +9,6 @@ import numpy as np
 from swarm_tpu.config import EngineConfig, GridConfig, SwarmConfig
 from swarm_tpu.ops.beam_raster import (BeamSpec, beam_raster_reference,
                                        beams_from_4way, beams_from_scan)
-from swarm_tpu.ops.beam_raster_pallas import beam_raster_pallas
 from swarm_tpu.ops.raster import RayBatch, logodds_raster
 
 
@@ -48,29 +48,6 @@ def test_beam_scan_fov_limited():
     assert np.abs(occ[:, 1] - 118).max() <= 2
 
 
-def test_pallas_interpret_matches_reference():
-    cfg = GridConfig(size=640)
-    rng = np.random.default_rng(1)
-    n = 6
-    lo = jnp.asarray(rng.normal(0, 0.2, (cfg.size, cfg.size)), jnp.float32)
-    xy = jnp.asarray(rng.uniform(-3, 20, (n, 2)), jnp.float32)
-    yaw = jnp.asarray(rng.uniform(-np.pi, np.pi, n), jnp.float32)
-    active = jnp.asarray([True] * (n - 1) + [False])
-    for spec, dist in [
-        (BeamSpec.four_way(), rng.uniform(0.1, 2.0, (n, 4))),
-        (BeamSpec.scan(37), rng.uniform(0.1, 2.0, (n, 37))),
-    ]:
-        d, tr = beams_from_4way(jnp.asarray(dist, jnp.float32), 1.2, 0.05)
-        d_m = jnp.where(active[:, None], d, 0.0)
-        ref, _ = beam_raster_reference(lo, xy, yaw, d_m,
-                                       tr & active[:, None], spec, cfg)
-        out = beam_raster_pallas(lo, xy, yaw, d, tr, active, spec, cfg,
-                                 interpret=True)
-        diff = np.abs(np.asarray(out) - np.asarray(ref))
-        # the kernel's polynomial atan2 may flip borderline cells only
-        assert (diff > 1e-4).sum() <= 8, (spec.n_beams, (diff > 1e-4).sum())
-
-
 def test_beam_vs_line_raster_agreement():
     """Both evidence models must produce the same map structure on the
     closed-loop dual-bot run (free interior, occupied walls)."""
@@ -99,30 +76,28 @@ def test_beam_vs_line_raster_agreement():
 
 
 def test_engine_pallas_mode_runs_interpret():
-    """use_pallas engine mode end-to-end (interpreter on CPU)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """fast_raster engine mode end-to-end (the path the GPU runs)."""
     from swarm_tpu.engine.sim import make_agent_params, sim_init, sim_step
     from swarm_tpu.geom.world import BEDROOM_WALLS
 
     cfg = SwarmConfig(n_agents=2, grid=GridConfig(size=384),
                       engine=EngineConfig(
                           parity_mode=False, compute_frontiers=False,
-                          raster_mode="beam", use_pallas=True))
+                          raster_mode="beam", fast_raster=True))
     params = make_agent_params(2)
     st = sim_init(cfg, params)
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(3):
-            st, m = sim_step(st, cfg, jnp.asarray(BEDROOM_WALLS), params)
+    for _ in range(3):
+        st, m = sim_step(st, cfg, jnp.asarray(BEDROOM_WALLS), params)
     assert int(m.writes) > 0
     assert np.isfinite(np.asarray(st.srv.logodds)).all()
 
 
 def test_banded_window_kernel_bit_exact():
-    """free_raster_pallas on row-band and 2-D tile windows (traced
-    offsets, grid-edge ghost guard) is BIT-EXACT vs the XLA tier on the
-    same windows — the surface the sharded engine's use_pallas path
-    adds (parallel/sharded.py)."""
+    """free_raster_fast on row-band and 2-D tile windows (traced offsets,
+    grid-edge ghost guard) is BIT-EXACT vs the reference on the same
+    windows — the surface the sharded engine's decompositions use
+    (parallel/sharded.py). The agents' fans do not overlap, so both
+    apply one float product per cell."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -130,7 +105,7 @@ def test_banded_window_kernel_bit_exact():
     from swarm_tpu.config import GridConfig
     from swarm_tpu.ops.beam_raster import (BeamSpec,
                                            free_raster_reference)
-    from swarm_tpu.ops.beam_raster_pallas import free_raster_pallas
+    from swarm_tpu.ops.fast_raster import free_raster_fast
 
     grid = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
     spec = BeamSpec.scan(61)
@@ -153,27 +128,22 @@ def test_banded_window_kernel_bit_exact():
             jnp.zeros(tgt), xy, yaw, dist, act, spec, grid,
             n_groups=spec.n_beams, reach=26, band=band,
             band_cols=band_cols, tail_weight=0.0)
-        ker, kw = free_raster_pallas(
+        ker, kw = free_raster_fast(
             jnp.zeros(tgt), xy, yaw, dist, act, spec, grid,
             n_groups=spec.n_beams, reach=26, band=band,
-            band_cols=band_cols, interpret=True)
+            band_cols=band_cols)
         np.testing.assert_array_equal(np.asarray(ref), np.asarray(ker))
         assert float(w) > 0
-        # the in-kernel applied counter equals the XLA tier's painted
-        # count (identical free masks + crossing counts, bit-exact)
+        # the painted counter equals the reference's painted count
+        # (identical free masks + crossing counts, bit-exact)
         np.testing.assert_allclose(float(jnp.sum(kw)), float(w), rtol=1e-6)
 
 
 def test_bfloat16_grid_tristate_equivalent():
-    """VERDICT r2 item 8: the bf16 grid knob (half the HBM of the 1 GB
-    16,384^2 float32 grid) — evidence accumulates in f32 in-kernel and
-    rounds on store, so the tri-state view must match the f32 run on all
-    but a sliver of threshold-straddling cells."""
-    import dataclasses
-
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
+    """The bf16 grid knob (half the device memory of the 1 GB 16,384^2
+    float32 grid) — evidence is applied in f32 and rounds on store, so
+    the tri-state view must match the f32 run on all but a sliver of
+    threshold-straddling cells."""
     from swarm_tpu.engine.sim import make_agent_params, sim_init, sim_step
     from swarm_tpu.geom.world import BEDROOM_WALLS
     from swarm_tpu.ops.raster import tri_state_view
@@ -184,15 +154,14 @@ def test_bfloat16_grid_tristate_equivalent():
             n_agents=2,
             grid=GridConfig(size=384, logodds_dtype=dt),
             engine=EngineConfig(parity_mode=False, compute_frontiers=False,
-                                raster_mode="beam", use_pallas=True,
+                                raster_mode="beam", fast_raster=True,
                                 scan_rays=37, raster_4way=False))
         params = make_agent_params(2, cfg=cfg)
         st = sim_init(cfg, params)
         assert st.srv.logodds.dtype == cfg.grid.lo_dtype
         walls = jnp.asarray(BEDROOM_WALLS)
-        with pltpu.force_tpu_interpret_mode():
-            for _ in range(30):
-                st, m = sim_step(st, cfg, walls, params)
+        for _ in range(30):
+            st, m = sim_step(st, cfg, walls, params)
         grids[dt] = np.asarray(tri_state_view(st.srv.logodds, cfg.grid))
         assert int(m.writes) > 0
     a, b = grids["float32"], grids["bfloat16"]
@@ -203,17 +172,11 @@ def test_bfloat16_grid_tristate_equivalent():
 
 
 def test_pack8_window_kernel_bit_exact():
-    """The 8-bit quad-packed per-beam kernel (EngineConfig.beam_pack8) is
-    BIT-EXACT vs the XLA tier fed 1/4-cell-quantized ranges
+    """The 1/4-cell range quantization (EngineConfig.beam_pack8) of the
+    fast path is BIT-EXACT vs the reference fed 1/4-cell-quantized ranges
     (quantize_ranges_cells8): 1/4 cell is an exact multiple of the shared
     1/256-cell quant, so the reference's own re-quantization is identity.
-    Covers the quad select tree + byte-lane unpack on window, row-band,
-    and grid-edge tile windows.
-
-    COVERAGE NOTE: CI runs this under interpret=True only (no TPU in the
-    CPU test lane), so Mosaic lowering of the int32 byte-lane shift/mask
-    ops is exercised by bench.py / tools/quality_onchip.py on real
-    hardware, not here."""
+    Covers full-grid, row-band, and grid-edge tile windows."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -221,7 +184,7 @@ def test_pack8_window_kernel_bit_exact():
     from swarm_tpu.config import GridConfig
     from swarm_tpu.ops.beam_raster import (BeamSpec, free_raster_reference,
                                            quantize_ranges_cells8)
-    from swarm_tpu.ops.beam_raster_pallas import free_raster_pallas
+    from swarm_tpu.ops.fast_raster import free_raster_fast
 
     grid = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
     spec = BeamSpec.scan(61)
@@ -232,7 +195,7 @@ def test_pack8_window_kernel_bit_exact():
     yaw = jnp.asarray([0.3, -1.2, 2.0])
     dist = jax.random.uniform(key, (3, 61), minval=0.15, maxval=1.19)
     act = jnp.ones((3,), bool)
-    # the XLA tier sees the kernel's coarser fixed point explicitly
+    # the reference sees the coarser fixed point explicitly
     dist_q = quantize_ranges_cells8(dist / grid.resolution) \
         * grid.resolution
 
@@ -248,20 +211,20 @@ def test_pack8_window_kernel_bit_exact():
             jnp.zeros(tgt), xy, yaw, dist_q, act, spec, grid,
             n_groups=spec.n_beams, reach=26, band=band,
             band_cols=band_cols, tail_weight=0.0)
-        ker, kw = free_raster_pallas(
+        ker, kw = free_raster_fast(
             jnp.zeros(tgt), xy, yaw, dist, act, spec, grid,
             n_groups=spec.n_beams, reach=26, band=band,
-            band_cols=band_cols, interpret=True, pack8=True)
+            band_cols=band_cols, pack8=True)
         np.testing.assert_array_equal(np.asarray(ref), np.asarray(ker))
         assert float(w) > 0
         np.testing.assert_allclose(float(jnp.sum(kw)), float(w), rtol=1e-6)
 
 
 def test_pack8_trusted_flag_matches_pack16():
-    """With in-kernel endpoint painting ON, the pack8 kernel's trusted
-    flag (bit 7) reproduces the 16-bit kernel's (bit 15) exactly: feed
-    both kernels ranges already at 1/4-cell fixed point (exact in both
-    formats) and require bit-equal maps and counters."""
+    """With endpoint-ring painting ON, the 1/4-cell quantization paints
+    the same ring as the 1/256-cell one: feed both ranges already at
+    1/4-cell fixed point (exact in both) and require bit-equal maps and
+    counters."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -269,7 +232,7 @@ def test_pack8_trusted_flag_matches_pack16():
     from swarm_tpu.config import GridConfig
     from swarm_tpu.ops.beam_raster import (BeamSpec,
                                            quantize_ranges_cells8)
-    from swarm_tpu.ops.beam_raster_pallas import free_raster_pallas
+    from swarm_tpu.ops.fast_raster import free_raster_fast
 
     grid = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
     spec = BeamSpec.scan(61)
@@ -283,10 +246,10 @@ def test_pack8_trusted_flag_matches_pack16():
 
     outs = {}
     for pack8 in (False, True):
-        outs[pack8] = free_raster_pallas(
+        outs[pack8] = free_raster_fast(
             jnp.zeros((grid.size, grid.size)), xy, yaw, dist, act, spec,
             grid, n_groups=spec.n_beams, reach=26, trusted=trusted,
-            interpret=True, pack8=pack8)
+            pack8=pack8)
     np.testing.assert_array_equal(np.asarray(outs[False][0]),
                                   np.asarray(outs[True][0]))
     np.testing.assert_allclose(np.asarray(outs[False][1]),

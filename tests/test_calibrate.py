@@ -84,7 +84,7 @@ def test_few_fixes_leave_chain_untouched():
 
 def test_robust_irls_downweights_false_fixes():
     """With ~30% of fixes corrupted by 0.5-1.5 m false-match offsets
-    (the NOTES_r4 measured false-verified regime), the robust
+    (the measured false-verified regime), the robust
     (Geman-McClure score + Cauchy IRLS) calibration still recovers the
     drift parameters; the scale fit in particular must not rail at its
     clip band the way plain LS does."""

@@ -1,8 +1,8 @@
 """Buffer donation (SURVEY §5: jit donation/aliasing is the surviving
-hazard class of the pure-functional design — VERDICT r1 weak #5).
+hazard class of the pure-functional design).
 
 `make_sim_step`/`make_sharded_sim_step` default to donate=True (the
-deployable config: the state pytree is re-used in place, halving HBM
+deployable config: the state pytree is re-used in place, halving device memory
 traffic for the big grid buffers). Every other test passes donate=False;
 these runs pin down that donation changes NOTHING numerically.
 """

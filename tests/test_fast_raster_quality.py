@@ -1,9 +1,9 @@
-"""Map-quality guards for the fast raster tiers (VERDICT r1 item 5).
+"""Map-quality guards for the fast raster tiers.
 
 Two tiers, two bars:
 
-  * PER-BEAM EXACT (beam_groups=0, the default): the kernel's packed
-    unrolled sweep implements the exact inverse sensor model — its map
+  * PER-BEAM EXACT (beam_groups=0, the default): the fast path's
+    per-beam carve implements the exact inverse sensor model — its map
     must match the XLA exact tier (`beam_raster_reference`) at
     free-space IoU >= 0.9 and wall placement p90 <= 1 cell, on
     engine-level closed-loop runs AND raster-level 300-step rollouts
@@ -21,7 +21,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
 
 from __graft_entry__ import _cfg_and_world
 from swarm_tpu.config import GridConfig, SensorConfig
@@ -34,16 +33,14 @@ from swarm_tpu.ops.beam_raster import (BeamSpec, beam_raster_reference,
 from swarm_tpu.ops.raster import logodds_delta, tri_state_view
 
 
-def _run(patch, steps=60, use_pallas=True):
+def _run(patch, steps=60, fast_raster=True):
     cfg, walls, params, rooms = _cfg_and_world(
         4, frontiers=False, parity=False, raster_mode="beam",
-        use_pallas=use_pallas, scan_rays=61, tiled=True)
+        fast_raster=fast_raster, scan_rays=61, tiled=True)
     cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, **patch))
     st = sim_init(cfg, params)
-    with pltpu.force_tpu_interpret_mode():
-        final, _ = sim_rollout(st, steps, cfg, jnp.asarray(walls), params,
-                               walls_grouped=rooms[0],
-                               room_of_agent=rooms[1])
+    final, _ = sim_rollout(st, steps, cfg, jnp.asarray(walls), params,
+                           walls_grouped=rooms[0], room_of_agent=rooms[1])
     return np.asarray(tri_state_view(final.srv.logodds, cfg.grid)), cfg
 
 
@@ -59,11 +56,11 @@ def _compare(exact, fast, cfg):
 
 
 def test_per_beam_kernel_matches_exact_engine():
-    """Engine-level: per-beam Pallas kernel vs the XLA exact tier, same
-    closed-loop run — with the exact endpoint scatter AND with in-kernel
-    endpoint painting (the bench default: per-beam trust is exact, hits
+    """Engine-level: per-beam fast path vs the exact tier, same
+    closed-loop run — with the exact endpoint scatter AND with endpoint-
+    ring painting (the bench default: per-beam trust is exact, hits
     land on the |r - r_b| <= 0.71 ring)."""
-    exact, cfg = _run({"raster_4way": False}, use_pallas=False)
+    exact, cfg = _run({"raster_4way": False}, fast_raster=False)
     fast, _ = _run({"raster_4way": False, "beam_groups": 0})
     iou, p90 = _compare(exact, fast, cfg)
     assert iou >= 0.9, iou
@@ -77,8 +74,8 @@ def test_per_beam_kernel_matches_exact_engine():
 
 
 def test_group_turbo_structurally_matches_exact():
-    """Turbo tier (groups=8, in-kernel endpoints): honest structural bar."""
-    exact, cfg = _run({"raster_4way": False}, use_pallas=False)
+    """Grouped tier (groups=8, ring endpoints): honest structural bar."""
+    exact, cfg = _run({"raster_4way": False}, fast_raster=False)
     fast, _ = _run({"raster_4way": False, "kernel_endpoints": True,
                     "beam_groups": 8})
     iou, p90 = _compare(exact, fast, cfg)
@@ -89,8 +86,8 @@ def test_group_turbo_structurally_matches_exact():
 def _raster_rollout(walls, grid, seed, steps, rays=61, agents=4,
                     n_groups=0):
     """Raster-level rollout: random-walk agents, identical noisy scans
-    accumulated by the exact tier and the fast tier (per-beam XLA fast
-    tier == Pallas kernel bit-for-bit, tests/test_beam_raster.py)."""
+    accumulated by the exact tier and the fast tier's reference
+    (fast path == reference bit-for-bit, tests/test_beam_raster.py)."""
     sens = SensorConfig()
     spec = BeamSpec.scan(rays)
     reach = int(np.ceil(sens.max_range / grid.resolution)) + 2

@@ -1,6 +1,5 @@
 """Online per-agent frame tracker (SlamConfig.merge_frame_gain;
-slam/livemerge.py FrameState / frame_advance / frame_innovate —
-VERDICT r4 items 1/2).
+slam/livemerge.py FrameState / frame_advance / frame_innovate).
 
 The tracker estimates each agent's reported-frame rotation (the yaw-
 bias drift, generate_fake_dual_session.py:407-444), its per-meter
@@ -257,7 +256,7 @@ def test_fused_engine_frame_tracker_reduces_drift():
 
     base_cfg, walls, params, rooms = _cfg_and_world(
         4, frontiers=False, parity=False, raster_mode="beam",
-        use_pallas=False, scan_rays=61, tiled=True)
+        fast_raster=False, scan_rays=61, tiled=True)
     res = {}
     for name, gain in [("off", 0.0), ("on", 0.35)]:
         cfg = base_cfg.replace(

@@ -261,7 +261,7 @@ def test_rows_sharded_merge_runs():
         grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0),
         engine=EngineConfig(parity_mode=False, compute_frontiers=False,
                             raster_mode="beam", scan_rays=61,
-                            raster_4way=False, use_pallas=False,
+                            raster_4way=False, fast_raster=False,
                             kernel_endpoints=False, endpoint_hits=True,
                             merge_every=3))
     params = make_agent_params(n, separation=2.0, cfg=cfg)
@@ -425,8 +425,8 @@ def test_distinct_gate_rejects_aperture_ambiguous_match():
     sees only one straight wall scores flat along the wall (the aperture
     problem) — fitness passes but `distinct` must be False; a corner
     scan (two perpendicular walls) pins both axes and stays distinct.
-    These are exactly the measured false-verified geometries (NOTES_r4:
-    wall-hugging scans, 21-31% of verified events)."""
+    These are exactly the measured false-verified geometries (wall-hugging
+    scans, 21-31% of verified events)."""
     import numpy as np
     from swarm_tpu.slam.scanmatch import match_scan_window
 

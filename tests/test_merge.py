@@ -101,8 +101,7 @@ def _wall_submap(origin, width, height, drift_x=0.0, res=0.05):
 
 def test_dynamic_merge_offset_submaps():
     """merge_submaps_dynamic accepts differently-sized, offset submaps and
-    produces a bounds-fitted global map (map_merger.py:87-127 semantics —
-    the r3 VERDICT's one missing reference behavior)."""
+    produces a bounds-fitted global map (map_merger.py:87-127 semantics)."""
     from swarm_tpu.slam.merge import merge_submaps_dynamic
 
     res = 0.05

@@ -1,5 +1,5 @@
 """Round-2 sharded-path fixes: TARG delivery on the mesh-sharded step,
-beam-model 4-way raster parity with the fused pallas path, and the
+beam-model 4-way raster parity with the fused fast path, and the
 runtime band-escape guard for the rows-sharded grid."""
 
 import dataclasses
@@ -7,7 +7,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.config import EngineConfig, GridConfig, SwarmConfig
 from swarm_tpu.engine.sim import make_agent_params, make_sim_step, sim_init
@@ -44,7 +43,7 @@ def test_sharded_targets_assigned_and_pursued():
 
 def test_sharded_beam_4way_matches_fused_pallas():
     """With raster_4way=True the sharded beam body must use the same fast
-    tier (grouped free space + exact endpoint scatter) as the fused pallas
+    tier (grouped free space + exact endpoint scatter) as the fused fast
     path — the line-scatter it used before produced a different map for
     identical cfg (round-1 advisor finding)."""
     n = 8
@@ -57,28 +56,26 @@ def test_sharded_beam_4way_matches_fused_pallas():
     params = make_agent_params(n, separation=2.0, cfg=base)
     steps = 8
 
-    cfg_sh = base.replace(engine=dataclasses.replace(eng, use_pallas=False))
     mesh = make_mesh(4)
-    sh_step = make_sharded_sim_step(cfg_sh, BEDROOM_WALLS, params, mesh,
+    sh_step = make_sharded_sim_step(base, BEDROOM_WALLS, params, mesh,
                                     donate=False)
-    st_sh = shard_state(sim_init(cfg_sh, params), mesh)
+    st_sh = shard_state(sim_init(base, params), mesh)
     for _ in range(steps):
         st_sh, m_sh = sh_step(st_sh)
 
-    cfg_ref = base.replace(engine=dataclasses.replace(eng, use_pallas=True))
+    cfg_ref = base.replace(engine=dataclasses.replace(eng, fast_raster=True))
     ref_step = make_sim_step(cfg_ref, BEDROOM_WALLS, params, donate=False)
     st_ref = sim_init(cfg_ref, params)
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(steps):
-            st_ref, m_ref = ref_step(st_ref)
+    for _ in range(steps):
+        st_ref, m_ref = ref_step(st_ref)
 
     np.testing.assert_allclose(np.asarray(st_sh.pose_true),
                                np.asarray(st_ref.pose_true),
                                rtol=1e-5, atol=1e-6)
     diff = np.abs(np.asarray(st_sh.srv.logodds) -
                   np.asarray(st_ref.srv.logodds))
-    assert (diff > 1e-3).sum() <= 64, (diff > 1e-3).sum()
-    assert 0.5 < int(m_sh.writes) / max(int(m_ref.writes), 1) < 2.0
+    assert (diff > 1e-3).sum() == 0, (diff > 1e-3).sum()
+    assert int(m_sh.writes) == int(m_ref.writes) > 0
 
 
 def _vertical_world(n_devices: int):
@@ -88,7 +85,7 @@ def _vertical_world(n_devices: int):
     walls, origins, size = make_vertical_rooms(n_devices)
     eng = EngineConfig(parity_mode=False, compute_frontiers=False,
                        raster_mode="beam", scan_rays=37,
-                       raster_4way=False, beam_groups=8, use_pallas=False,
+                       raster_4way=False, beam_groups=8, fast_raster=False,
                        kernel_endpoints=False, endpoint_hits=True)
     cfg = SwarmConfig(n_agents=n_agents,
                       grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0),
@@ -107,7 +104,7 @@ def _vertical_world(n_devices: int):
 
 
 def test_band_escape_guard():
-    """Rows-sharded runtime guard (VERDICT r1 item 4): clean runs report 0
+    """Rows-sharded runtime guard: clean runs report 0
     escapes; an estimate driven past the drift margin must fire the guard
     instead of silently diverging from the replicated decomposition."""
     d = min(4, len(jax.devices()))

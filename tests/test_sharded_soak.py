@@ -1,4 +1,4 @@
-"""Long-horizon sharded soak (VERDICT r2 item 7): does the spatial
+"""Long-horizon sharded soak: does the spatial
 sharding's static drift budget (drift_margin_m = 1.0,
 parallel.sharded.agent_evidence_box) actually hold over thousands of
 steps with closures + merge actively correcting drift?
@@ -6,7 +6,7 @@ steps with closures + merge actively correcting drift?
 Opt-in (SWARM_SOAK=1, optionally SWARM_SOAK_STEPS=5000): ~10-20 min on
 the virtual-CPU mesh. The short default (SWARM_SOAK unset) runs a
 300-step version of the same assertions so the wiring stays covered in
-CI; the 5k-step measured result is recorded in NOTES_r3.md.
+CI.
 
 Asserts, for the rows and tiles decompositions with closures + merge ON:
   * band_escapes == 0 on EVERY step (the runtime guard never fires, so
@@ -61,7 +61,7 @@ def _worlds(kind: str, n_dev: int, scan_rays: int = 37,
             grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0),
             engine=EngineConfig(parity_mode=False, compute_frontiers=False,
                                 raster_mode="beam", scan_rays=scan_rays,
-                                raster_4way=False, use_pallas=False,
+                                raster_4way=False, fast_raster=False,
                                 kernel_endpoints=False, endpoint_hits=True,
                                 merge_every=16),
             # the deployable correction preset (see __graft_entry__):
@@ -74,7 +74,7 @@ def _worlds(kind: str, n_dev: int, scan_rays: int = 37,
             # turn_gate=0 for the sparse 37-ray fan: the accumulated
             # innovations absorb the turn-projection noise, and gating
             # starved fast movers of their own corrections (measured
-            # sweep in NOTES_r4.md).
+            # sweep).
             slam=SlamConfig(closure_same_agent_only=True,
                             closure_correction=0.0, merge_anchor=True,
                             merge_frame_gain=0.35,
@@ -161,13 +161,13 @@ def test_sharded_soak_band_containment(kind, sharding):
 
 # deployable-density leg steps: the 181-ray fan is ~5x the 37-ray soak
 # preset's raster work, so the opt-in horizon defaults to 2000 (strict
-# contract bar from VERDICT r4 item 6) and CI runs a 150-step wiring pass
+# contract bar) and CI runs a 150-step wiring pass
 DEPLOY_STEPS = (int(os.environ.get("SWARM_SOAK_DEPLOY_STEPS", "2000"))
                 if SOAK else 150)
 
 
 def test_sharded_soak_deployable_density():
-    """VERDICT r4 item 6: the soak contract at DEPLOYABLE scan density —
+    """The soak contract at DEPLOYABLE scan density —
     181-ray servo fans with the frame tracker's turn gate at its
     config.py default (the r4 soak record used 37-ray fans with the
     gate disabled, so the long-horizon evidence did not cover the

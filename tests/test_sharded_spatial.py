@@ -25,7 +25,7 @@ def _vertical_world(n_devices: int):
     eng = EngineConfig(parity_mode=False, compute_frontiers=False,
                        raster_mode="beam", scan_rays=37,
                        raster_4way=False, beam_groups=8,
-                       use_pallas=False,
+                       fast_raster=False,
                        kernel_endpoints=False, endpoint_hits=True)
     cfg = SwarmConfig(n_agents=n_agents, grid=grid, engine=eng)
     params = make_agent_params(n_agents, separation=2.0, cfg=cfg)
@@ -85,7 +85,7 @@ def test_rows_sharding_rejects_band_escaping_agents():
     grid = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
     eng = EngineConfig(parity_mode=False, compute_frontiers=False,
                        raster_mode="beam", scan_rays=37, raster_4way=False,
-                       use_pallas=False, kernel_endpoints=False,
+                       fast_raster=False, kernel_endpoints=False,
                        endpoint_hits=True)
     cfg = SwarmConfig(n_agents=n_agents, grid=grid, engine=eng)
     params = make_agent_params(n_agents, separation=2.0, cfg=cfg)

@@ -1,5 +1,5 @@
 """2-D tile grid sharding with halo exchange (grid_sharding="tiles",
-VERDICT r1 item 10 / SURVEY §2 "grid tiles = shards").
+SURVEY §2 "grid tiles = shards").
 
 Three layers of evidence:
   * raster-level: border-crossing evidence placed by agents near tile
@@ -45,7 +45,7 @@ def _tiled_world(n_rooms=8, per_row=2, scan_rays=37):
     grid = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
     eng = EngineConfig(parity_mode=False, compute_frontiers=False,
                       raster_mode="beam", scan_rays=scan_rays,
-                      raster_4way=False, use_pallas=False,
+                      raster_4way=False, fast_raster=False,
                       kernel_endpoints=False, endpoint_hits=True)
     cfg = SwarmConfig(n_agents=n_agents, grid=grid, engine=eng)
     params = make_agent_params(n_agents, separation=2.0, cfg=cfg)

@@ -1,4 +1,4 @@
-"""Scan matching (correlative, MXU conv) + pose-graph Gauss-Newton."""
+"""Scan matching (correlative, batched matmul) + pose-graph Gauss-Newton."""
 
 import jax
 import jax.numpy as jnp

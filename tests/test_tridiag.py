@@ -1,5 +1,5 @@
 """Structure-exploiting pose-graph GN (slam/tridiag.py + the trajectory-
-axis sharded accumulation, SURVEY §5 / VERDICT r1 item 6).
+axis sharded accumulation, SURVEY §5).
 
 Correctness anchor = the dense solver (slam/posegraph.py), which is itself
 oracle-tested; the structured solver must reproduce its poses while
@@ -83,7 +83,7 @@ def test_structured_gn_batch_matches_dense(rng):
 
 
 def test_structured_gn_large_graph_reduces_cost(rng):
-    """4096 nodes (VERDICT item 6 scale): the dense solver would build a
+    """4096 nodes: the dense solver would build a
     12288² Hessian (600 MB) per iteration — the structured solver runs it
     and actually optimises."""
     g = _noisy_loop_graph(rng, 4096, closure_cap=8, n_closures=6)
@@ -147,8 +147,7 @@ def test_zero_weight_closure_component_contributes_nothing():
 
 def _drifted_chain(rng, m):
     """Truth path + a slowly-growing frame drift (the swarm drift regime:
-    near-rigid transform, unobservable from same-agent relative edges —
-    NOTES_r3). Returns (truth [m,3], drifted est [m,3])."""
+    near-rigid transform, unobservable from same-agent relative edges). Returns (truth [m,3], drifted est [m,3])."""
     t = np.linspace(0, 6.0, m)
     truth = np.stack([t, 0.4 * np.sin(t), 0.4 * np.cos(t)], -1)
     # drift: yaw bias accumulating with distance + scale bias
@@ -174,8 +173,7 @@ def _unary_graph(rng, m):
 
 
 def test_unary_factors_recover_frame_drift(rng):
-    """Absolute pose factors (the anchored-merge observations of VERDICT
-    r3 item 1) must recover a slowly-growing frame drift that relative
+    """Absolute pose factors (the anchored-merge observations) must recover a slowly-growing frame drift that relative
     edges alone cannot observe: chain edges measured FROM the drifted
     estimate have zero residual, so chain-only GN is a no-op, while a
     sparse set of external-frame observations pins the frame."""

@@ -1,4 +1,4 @@
-"""v1 firmware EKF-yaw feedback (VERDICT r1 item 8): in the v1 firmware
+"""v1 firmware EKF-yaw feedback: in the v1 firmware
 the EKF yaw DRIVES robot_yaw every loop (AgentFirmware.ino.ino:429-436),
 unlike Bot1/Bot2's commanded-yaw odometry (AgentFirmware_Bot1.ino:704-707).
 The engine reproduces this per-agent via AgentParams.ekf_yaw."""
@@ -48,7 +48,7 @@ def test_v1_yaw_tracks_ekf_and_diverges_from_commanded():
 
 
 def test_v2v_count_personality():
-    """VERDICT r2 item 9: the firmware's cumulative received-broadcast
+    """the firmware's cumulative received-broadcast
     v2v counter (AgentFirmware_Bot1.ino:211-215; 20 Hz SensorNode
     broadcasts) as a per-agent personality next to the sim generator's
     distance-in-cm semantics."""

@@ -109,7 +109,7 @@ def test_playback_source_controls(tmp_path):
 
 
 def test_live_view_cloud_and_path_layers():
-    """VERDICT r2 item 5: the LIVE view draws per-sensor point clouds and
+    """the LIVE view draws per-sensor point clouds and
     downsampled paths, not just the grid — ViewTrails feeds the snapshot
     layers and render_view colors them per agent / shades per sensor."""
     from swarm_tpu.server.live import ViewTrails

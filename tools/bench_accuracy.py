@@ -1,4 +1,4 @@
-"""SLAM accuracy benchmark (VERDICT r2 item 3): ATE + map-vs-true-walls.
+"""SLAM accuracy benchmark: ATE + map-vs-true-walls.
 
 The reference's closure corrections (dual_bot_mapper.py:320-326) and
 fitness-gated merge (map_merger.py:45-62) exist to IMPROVE the map — this
@@ -223,8 +223,7 @@ def main():
                          "Default 0 (ungated): the r5 64-agent A/B "
                          "measured 0.594 m online late ATE ungated vs "
                          "0.644 at 0.05 (and 0.603 vs 0.649 offline "
-                         "calibrated_gn) — docs/bench_accuracy_r5*"
-                         ".json. The logged fix stream is separately "
+                         "calibrated_gn). The logged fix stream is separately "
                          "ungated (merge_distinct_log_margin)")
     ap.add_argument("--reloc-distinct", type=float, default=0.0,
                     help="merge_distinct_margin for the OFFLINE "
@@ -256,10 +255,9 @@ def main():
     from swarm_tpu.ops.raster import tri_state_view
     from swarm_tpu.slam.refine import refine_session
 
-    on_tpu = jax.devices()[0].platform == "tpu"
     base_cfg, walls, params, rooms = _cfg_and_world(
         args.agents, frontiers=False, parity=False, raster_mode="beam",
-        use_pallas=on_tpu, scan_rays=181, tiled=True)
+        fast_raster=True, scan_rays=181, tiled=True)
 
     wall_mask = true_wall_mask(walls, base_cfg.grid)
     results = {}
@@ -397,7 +395,7 @@ def main():
           f"{results['joint']['inter_edges']} verified cross edges)",
           flush=True)
 
-    # ----- anchored-merge absolute-observation tiers (VERDICT r4 item 1):
+    # ----- anchored-merge absolute-observation tiers:
     # the merge_anchored run's fitness-verified matches ARE external-frame
     # observations (the scan matched the frozen anchor map) — feed them to
     # the offline GN as unary factors on the raw-odometry chain, so the
@@ -448,7 +446,7 @@ def main():
         return {k: (round(v, 4) if isinstance(v, float) else v)
                 for k, v in wall_metrics(occ, wall_mask).items()}
 
-    # ----- drift-calibrated tiers (VERDICT r4 item 1): fit each agent's
+    # ----- drift-calibrated tiers: fit each agent's
     # (yaw-rate bias, translation scale) — the reference drift model's
     # actual parameters (generate_fake_dual_session.py:407-444) — against
     # the merge_anchored run's fitness-verified absolute fixes, then
@@ -476,7 +474,7 @@ def main():
           f"(|bias| mean {results['calibrated']['bias_hat_mean_abs']})",
           flush=True)
 
-    # ----- robust calibration (r5, VERDICT r4 item 1): the same fixes,
+    # ----- robust calibration: the same fixes,
     # Geman-McClure-scored bias search + Cauchy IRLS reweighting — the
     # measured 21-31% false-fix fraction must not steer the quadratic.
     cal_r = calibrate_chains(log_m["ex"] + x_off[None, :], log_m["ey"],

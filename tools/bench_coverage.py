@@ -124,8 +124,7 @@ def main():
     ap.add_argument("--seeds", type=int, default=1,
                     help="independent replicates (distinct sim_init PRNG "
                          "keys): the closed loop is chaotic — a single "
-                         "run cannot rank the variants (the r3 CPU run "
-                         "flipped the TPU plateau ordering); report "
+                         "run cannot rank the variants; report "
                          "mean +/- range over N >= 5 for claims")
     args = ap.parse_args()
     import jax
@@ -137,7 +136,6 @@ def main():
 
     from __graft_entry__ import _cfg_and_world
 
-    on_tpu = jax.devices()[0].platform == "tpu"
     seeds = [42 + 1000 * k for k in range(args.seeds)]
     results = {}
     curves = {}          # name -> [n_seeds, steps]
@@ -146,7 +144,7 @@ def main():
             ("frontier_targets", True, True)):
         cfg, walls, params, rooms = _cfg_and_world(
             args.agents, frontiers=frontiers, parity=False,
-            raster_mode="beam", use_pallas=on_tpu, scan_rays=181,
+            raster_mode="beam", fast_raster=True, scan_rays=181,
             tiled=True)
         reach = reachable_mask(walls, cfg.grid)
         covs, nfr = [], None

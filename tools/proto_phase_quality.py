@@ -1,5 +1,5 @@
 """Prototype: does phase-rotated group carving close the quality gap to
-the exact per-beam model? (VERDICT r1 item 5 investigation.)
+the exact per-beam model?
 
 Accumulates maps over a random-walk rollout in the bedroom world with:
   exact  — beam_raster_reference (per-beam free + endpoint)
@@ -7,7 +7,7 @@ Accumulates maps over a random-walk rollout in the bedroom world with:
   rot    — same with phase = step % per, tail off
 
 and reports free-space IoU + wall displacement of each fast tier vs
-exact. CPU, XLA tiers only (no Pallas) — fast turnaround.
+exact. CPU, fast turnaround.
 """
 import argparse
 import sys
